@@ -3,7 +3,7 @@
 Usage: python examples/batch_serve.py <dir-or-files...> [--out outdir]
 
 Decodes concurrently on host threads, buckets by sensor shape, and
-develops through the Pallas megakernel on a data-parallel device mesh
+develops through the fused XLA engine on a data-parallel device mesh
 (decode of batch N+1 overlaps develop of batch N; HBM bounded by the
 in-flight window). Writes JPEGs next to the inputs or into --out.
 """

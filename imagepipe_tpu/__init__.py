@@ -1,9 +1,9 @@
-"""imagepipe_tpu: a TPU-native batched RAW-development engine.
+"""imagepipe_tpu: a batched RAW-development engine in JAX.
 
-A ground-up JAX/XLA/Pallas re-design with the capabilities of the reference
+A ground-up JAX/XLA re-design with the capabilities of the reference
 Rust crate `imagepipe` (pedrocr/imagepipe): any camera RAW or raster image ->
 8/16-bit sRGB through a fixed 8-stage pipeline with content-addressed stage
-caching -- plus a new batch dimension sharded over TPU meshes.
+caching -- plus a new batch dimension sharded over device meshes.
 
 Public surface parity (reference /root/reference/src/lib.rs:7-26):
 Pipeline, ImageSource, OpBuffer, SRGBImage(16), Rotation, SplineFunc,

@@ -1,6 +1,6 @@
 """Color math core: matrices, LUT-accelerated transforms, quantizers.
 
-TPU-native re-design of the reference color layer
+Vectorized re-design of the reference color layer
 (/root/reference/src/color_conversions.rs:1-330). The reference evaluates a
 scalar LUT-with-lerp per pixel on the CPU; here every transform is a
 vectorized JAX function over whole image tensors so XLA can fuse the full
@@ -19,7 +19,7 @@ Two numerics modes are provided:
   * "direct" -- evaluates the underlying function directly (cbrt / powf).
                 Fewer memory ops, no gathers; stays within the same +-1 LSB
                 contract because the LUT itself is within ~4e-6 of the exact
-                function. This is the TPU speed mode.
+                function.
 """
 
 from __future__ import annotations
@@ -85,19 +85,25 @@ _LUT_MAX = (1 << _MAXBITS) - 1  # 8191
 
 
 # ---------------------------------------------------------------------------
-# Numerics mode switch ("lut" = reference-faithful, "direct" = TPU-fast).
+# Numerics mode switch ("lut" = reference-faithful, "direct" = transcendentals).
 # ---------------------------------------------------------------------------
 
-# None = resolved on first use from the backend: 'lut' on CPU (the
-# reference-faithful golden-parity mode) and 'direct' on accelerators.
-# The per-pixel LUT gathers serialize on the TPU VPU (~1000x arithmetic;
-# CLAUDE.md measurement notes) — leaving 'lut' as a static accelerator
-# default made every STAGED op pay ~30 ms of device time per 1024px
-# dirty-suffix re-render (round-5 attribution, BASELINE.md r5) while the
-# fused engine had always resolved 'auto' to 'direct'. Both device paths
-# compute identical transcendental forms, so the cross-path contract
-# (<=1 LSB) is unchanged.
+# None = resolved on first use by default_numerics(). The staged ops and
+# the fused engine resolve through the same function, so both device paths
+# compute identical forms.
 _NUMERICS_MODE = None
+
+# The GPU default, settled by a 24MP A/B of both modes on the card (PERF.md,
+# numerics finding). Other backends keep 'lut', the reference-faithful mode
+# the golden-parity tests pin.
+GPU_NUMERICS = "direct"
+
+
+def default_numerics() -> str:
+    """The numerics mode for the current default backend."""
+    import jax
+
+    return GPU_NUMERICS if jax.default_backend() == "gpu" else "lut"
 
 
 def set_numerics_mode(mode: str) -> None:
@@ -110,10 +116,7 @@ def set_numerics_mode(mode: str) -> None:
 def get_numerics_mode() -> str:
     global _NUMERICS_MODE
     if _NUMERICS_MODE is None:
-        import jax
-
-        _NUMERICS_MODE = ("lut" if jax.default_backend() == "cpu"
-                          else "direct")
+        _NUMERICS_MODE = default_numerics()
     return _NUMERICS_MODE
 
 
@@ -190,11 +193,11 @@ def _jnp_xyz_lab_f_ref(v):
 
 
 def _jnp_xyz_lab_f(v):
-    # exp(log(v)/3) rather than jnp.cbrt: the SAME form the Pallas
-    # megakernel uses (Mosaic has no cbrt), so the two direct-mode device
-    # paths agree at the ULP level -- XLA:TPU's cbrt is a different
-    # polynomial, and the Lab-inverse cancellation amplifies the mismatch
-    # to >10 LSB at 16-bit output.
+    # exp(log(v)/3) rather than jnp.cbrt: one form shared by every
+    # direct-mode path (fused engine, staged ops), so they agree at the ULP
+    # level -- backends lower cbrt to different polynomials, and the
+    # Lab-inverse cancellation amplifies such a mismatch to >10 LSB at
+    # 16-bit output.
     cb = jnp.exp(jnp.log(jnp.maximum(v, 1e-30)) * (1.0 / 3.0))
     return jnp.where(v > _LAB_E, cb, (_LAB_K * v + 16.0) / 116.0)
 
@@ -215,7 +218,7 @@ def _jnp_srgb_expand_ref(v):
 def _jnp_srgb_expand(v):
     # Guard against non-positive bases (matches Rust powf domain: the
     # branch only selects hi for v >= 0.04045 anyway); exp/log form for
-    # cross-path ULP agreement with the Pallas kernel (see _jnp_xyz_lab_f).
+    # cross-path ULP agreement (see _jnp_xyz_lab_f).
     safe = jnp.maximum(v, jnp.float32(-0.054))
     hi = jnp.exp(jnp.log(jnp.maximum((safe + 0.055) / 1.055, 1e-30))
                  * jnp.float32(2.4))
@@ -236,7 +239,7 @@ def _jnp_srgb_apply_ref(v):
 
 
 def _jnp_srgb_apply(v):
-    # exp/log form matching the Pallas kernel's gamma exactly.
+    # exp/log form, for the same cross-path reason as _jnp_xyz_lab_f.
     hi = 1.055 * jnp.exp(jnp.log(jnp.maximum(v, 1e-30))
                          * (1.0 / 2.4)) - 0.055
     return jnp.where(v < 0.0031308, v * 12.92, hi)
@@ -332,9 +335,8 @@ def lab_to_rgb(rgbmatrix, pix):
 def camera_to_lab_planar(mul, cmatrix, planes):
     """Planar camera_to_lab: planes = (r, g, b, e) arrays -> (L, a, b).
 
-    TPU note: trailing channel dims of 3/4 get lane-padded up to 128 by the
-    tiled layout (42x memory); the planar forms keep every intermediate at
-    its natural [H, W] shape.
+    The planar forms keep every intermediate at its natural [H, W] shape,
+    so each channel is a contiguous plane for the elementwise fusions.
     """
     mul = jnp.asarray(mul, dtype=jnp.float32)
     m = jnp.asarray(cmatrix, dtype=jnp.float32)

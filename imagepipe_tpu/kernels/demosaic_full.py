@@ -4,13 +4,12 @@ Re-design of `full()` (/root/reference/src/ops/demosaic.rs:67-119). The
 reference walks pixels scalar-wise consulting a 48x48x9 neighbor-color
 lookup; here the same lookup drives nine shifted whole-image accumulations --
 each of the four color planes is a sum of masked shifts that XLA fuses into
-one pass over the sensor plane, mapping cleanly onto the VPU. Works for any
-periodic CFA (Bayer, X-Trans, 8x2) with identical edge handling.
+one pass over the sensor plane. Works for any periodic CFA (Bayer, X-Trans,
+8x2) with identical edge handling.
 
-TPU note: the neighbor-color map is materialized by TILING the 48x48
-periodic pattern (broadcast+reshape, pure relayout), never by per-pixel
-gathers -- dynamic gathers serialize on the TPU vector unit and were ~1000x
-slower.
+The neighbor-color map is materialized by TILING the 48x48 periodic pattern
+(broadcast+reshape), so the stencil is a pure elementwise fusion with no
+per-pixel gathers.
 """
 
 from __future__ import annotations
@@ -66,8 +65,7 @@ def _tiled_colors(cfa_name: str, i: int, height: int, width: int):
 
 
 def stencil_demosaic_planes(plane, cfa_name: str, height: int, width: int):
-    """[H,W] f32 sensor plane -> list of four [H,W] RGBE planes (planar form
-    avoids the TPU's 42x lane padding of trailing channel dims)."""
+    """[H,W] f32 sensor plane -> list of four [H,W] RGBE planes."""
     out = stencil_demosaic(plane, cfa_name, height, width, stacked=False)
     return out
 

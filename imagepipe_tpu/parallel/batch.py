@@ -1,4 +1,4 @@
-"""Batched multi-chip develop engine.
+"""Batched multi-device develop engine.
 
 The new capability over the reference (SURVEY.md section 2.5: the reference
 is strictly one image per Pipeline, rayon rows as its only parallelism).
@@ -6,12 +6,12 @@ Here the batch dimension is first-class: a file list is bucketed by sensor
 shape, stacked to [B,H,W] planes, and developed by the fused engine under a
 jax.sharding.Mesh:
 
-  * dp ("batch") axis -- images sharded across chips; embarrassingly
-    parallel, no collectives, scales linearly over ICI.
-  * sp ("spatial") axis -- each image's width sharded across chips; the
+  * dp ("batch") axis -- images sharded across devices; embarrassingly
+    parallel, no collectives.
+  * sp ("spatial") axis -- each image's width sharded across devices; the
     demosaic stencil's shifted reads become 1-pixel halo exchanges that
-    GSPMD inserts automatically. Used for images too large for one chip's
-    HBM (the 61MP config), analogous to sequence/context parallelism.
+    GSPMD inserts automatically. For frames too large for one device's
+    memory, analogous to sequence/context parallelism.
 
 Decode/compute overlap (the pipeline-parallelism analogue, SURVEY.md
 section 2.5): develop_files streams decodes through a host thread pool and
@@ -28,7 +28,6 @@ from collections import defaultdict
 
 import numpy as np
 import jax
-import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..engine import (make_develop_plan, _develop_batch_perimage_jit,
@@ -92,7 +91,7 @@ class BatchEngine:
     def __init__(self, mesh: Mesh | None = None, out_bits: int = 8,
                  max_batch: int = 8, decode_workers: int | None = None,
                  maxwidth: int = 0, maxheight: int = 0,
-                 executor: str = "auto", inflight_batches: int = 2):
+                 inflight_batches: int = 2):
         self.mesh = mesh if mesh is not None else make_batch_mesh()
         self.out_bits = out_bits
         self.max_batch = max_batch
@@ -105,10 +104,6 @@ class BatchEngine:
         # to stay busy under the host fetch, without HBM growing with the
         # input list length (every in-flight batch pins its device output).
         self.inflight_batches = max(1, int(inflight_batches))
-        # 'auto': Pallas megakernel for supported direct-numerics plans,
-        # XLA fused engine otherwise; 'xla' / 'pallas' force a path.
-        assert executor in ("auto", "xla", "pallas")
-        self.executor = executor
         # Test/observability hook: when set to a list, (event, payload)
         # tuples are appended for every decode completion and batch dispatch.
         self._events: list | None = None
@@ -125,27 +120,6 @@ class BatchEngine:
             pipe.globals.settings.linear = True
         return make_develop_plan(pipe, out_bits=self.out_bits)
 
-    def _use_pallas(self, plan) -> bool:
-        """The Pallas megakernel executor serves supported full-size CFA
-        plans in 'direct' numerics (its in-kernel math), dp-sharded via
-        shard_map; everything else goes through the XLA fused engine.
-        'auto' picks it where it measures faster (pallas_preferred --
-        currently every supported plan, since the closed-form demosaic
-        covers generic CFAs too); executor='pallas' forces it."""
-        from ..kernels.develop_pallas import pallas_preferred, pallas_supported
-
-        # Cheap gates first: pallas_supported probes kernel envelopes, so
-        # it should not run at all for plans the numerics/mesh rules will
-        # route to XLA anyway.
-        if plan.numerics != "direct":
-            return False
-        if plan.dem_path == "scaled" and self.mesh.shape["spatial"] != 1:
-            return False  # thumbnail outputs are tiny; no width sharding
-        ok = pallas_supported(plan)
-        if self.executor == "pallas":
-            return ok
-        return self.executor == "auto" and ok and pallas_preferred(plan)
-
     def _dispatch_chunk(self, chunk):
         """Stack one shape bucket's chunk, pad to the mesh's batch multiple,
         and dispatch the batched develop. Returns the DEVICE output (async:
@@ -155,179 +129,19 @@ class BatchEngine:
         pad = (-b) % self.mesh.shape["batch"]
         sel = np.arange(b + pad) % b if pad else np.arange(b)
 
-        if self._use_pallas(plan):
-            out = self._dispatch_pallas(chunk, sel)
-        else:
-            # Per-image calibration: params (WB, levels, matrices, curves)
-            # batch alongside the planes -- images bucket by STATICS only,
-            # so their params may differ.
-            # Host-side normalize: the jnp variant would upload + fetch
-            # every plane through the (remote) device before the real
-            # batched transfer below.
-            planes = np.stack([
-                normalize_plane_np(p_, src.raw.data)
-                for _, src, p_ in chunk])[sel]
-            param_dicts = [chunk[i][2].params for i in sel]
-            dev = shard_batch(self.mesh, jnp.asarray(planes))
-            out = _develop_batch_perimage_jit(
-                dev, stack_params(param_dicts), **plan.statics())
+        # Per-image calibration: params (WB, levels, matrices, curves)
+        # batch alongside the planes -- images bucket by STATICS only, so
+        # their params may differ. Planes are normalized and stacked on the
+        # host so the batch crosses to the device in one sharded transfer.
+        planes = np.stack([
+            normalize_plane_np(p_, src.raw.data)
+            for _, src, p_ in chunk])[sel]
+        param_dicts = [chunk[i][2].params for i in sel]
+        dev = shard_batch(self.mesh, planes)
+        out = _develop_batch_perimage_jit(
+            dev, stack_params(param_dicts), **plan.statics())
         self._note("dispatch", len(chunk))
         return out
-
-    def _dispatch_pallas(self, chunk, sel):
-        """Batched megakernel dispatch: host-staged planes, per-image
-        calibration tables, kernel chained per local batch entry inside a
-        dp-sharded shard_map (one launch per image, one dispatch total).
-        On a dp x sp mesh each image is additionally width-sharded with an
-        on-device halo exchange (_sp_local_develop)."""
-        from ..kernels.develop_pallas import (
-            batch_jit, _sp_local_develop, _sp_local_develop_batch,
-            calib_tables, plan_tables, sp_width_pad, stage_plane_np,
-            stage_plane_rows_np)
-        from ..kernels import develop_pallas as _dpk
-
-        plan = chunk[0][2]
-        sp = self.mesh.shape["spatial"]
-        # Per-image calibration only; the cmap strip / tile statics are
-        # bucket-invariant (bucket keys include the plan statics) and the
-        # scaled route never needs them.
-        ctabs = [calib_tables(chunk[i][2]) for i in sel]
-        scal = np.stack([t[0] for t in ctabs])
-        spline = np.stack([t[1] for t in ctabs])
-        interpret = jax.default_backend() == "cpu"
-
-        if plan.dem_path == "scaled":
-            return self._dispatch_pallas_scaled(chunk, sel, plan, scal,
-                                                spline, interpret)
-        cmap, _, _, statics = plan_tables(plan)
-        cmap_d = jnp.asarray(cmap)
-
-        if sp == 1:
-            staged = np.stack([stage_plane_np(chunk[i][2], chunk[i][1].raw.data)
-                               for i in sel])
-            spec_in = NamedSharding(self.mesh, P("batch", None, None))
-            planes_d = jax.device_put(jnp.asarray(staged), spec_in)
-            scal_d = jax.device_put(jnp.asarray(scal), spec_in)
-            spline_d = jax.device_put(jnp.asarray(spline), spec_in)
-
-            def local(planes_l, scal_l, spline_l):
-                return batch_jit(
-                    planes_l, cmap_d, scal_l, spline_l, per_image=True,
-                    interpret=interpret, **statics)
-
-            # check_vma=False: pallas_call's ShapeDtypeStruct outputs carry
-            # no varying-mesh-axes annotation, which the checker requires.
-            fn = jax.shard_map(
-                local, mesh=self.mesh,
-                in_specs=(P("batch", None, None),) * 3,
-                out_specs=P("batch", None, None, None), check_vma=False)
-            return fn(planes_d, scal_d, spline_d)
-
-        wpad = sp_width_pad(plan, sp)
-        Wl = wpad // sp
-        staged = np.stack([
-            stage_plane_rows_np(chunk[i][2], chunk[i][1].raw.data, wpad)
-            for i in sel])
-        planes_d = jax.device_put(
-            jnp.asarray(staged),
-            NamedSharding(self.mesh, P("batch", None, "spatial")))
-        spec_b = NamedSharding(self.mesh, P("batch", None, None))
-        scal_d = jax.device_put(jnp.asarray(scal), spec_b)
-        spline_d = jax.device_put(jnp.asarray(spline), spec_b)
-
-        def local_sp(planes_l, scal_l, spline_l):
-            if _dpk.BATCH_GRID:
-                return _sp_local_develop_batch(
-                    planes_l, cmap_d, scal_l, spline_l, axis="spatial",
-                    sp=sp, Wl=Wl, statics=statics, interpret=interpret,
-                    valid_width=plan.width)
-            outs = []
-            for b in range(planes_l.shape[0]):
-                outs.append(_sp_local_develop(
-                    planes_l[b], cmap_d, scal_l[b], spline_l[b],
-                    axis="spatial", sp=sp, Wl=Wl, statics=statics,
-                    interpret=interpret, valid_width=plan.width))
-            return jnp.stack(outs, axis=0)
-
-        fn = jax.shard_map(
-            local_sp, mesh=self.mesh,
-            in_specs=(P("batch", None, "spatial"), P("batch", None, None),
-                      P("batch", None, None)),
-            out_specs=P("batch", None, None, "spatial"), check_vma=False)
-        out = fn(planes_d, scal_d, spline_d)
-        # Shards develop unflipped (_sp_local_develop zeroes the flips);
-        # orientation permutes the assembled global image here.
-        from ..kernels.develop_pallas import apply_flips
-
-        return apply_flips(out[:, :, :, :plan.width],
-                           tuple(plan.orientation_flips))
-
-    def _dispatch_pallas_scaled(self, chunk, sel, plan, scal, spline,
-                                interpret):
-        """Thumbnail batches on the fused scaled-demosaic kernel, dp-sharded
-        like the full-size path (geometry tables replicate as shard_map
-        closure constants; per-image calibration shards with the planes)."""
-        from ..kernels import develop_scaled as _ds
-        from ..kernels.develop_scaled import (
-            _develop_scaled_batch_jit, _develop_scaled_batchgrid_jit,
-            _statics_for, _tables_device, scaled_plan_for, stage_scaled_np)
-
-        spn = scaled_plan_for(plan)
-        if spn is None:
-            # Deep thumbnails outside the tile-local kernel's envelope:
-            # the separable two-level matmul path (develop_scaled_sep).
-            from ..engine import stack_params
-            from ..kernels.develop_scaled_sep import (
-                _sep_batch_perimage_jit, _statics_for as _sep_statics,
-                _tables_device as _sep_tables, sep_plan_for, stage_sep_np)
-
-            sps = sep_plan_for(plan)
-            staged = np.stack([stage_sep_np(chunk[i][2],
-                                            chunk[i][1].raw.data)
-                               for i in sel])
-            tabs_d = _sep_tables(plan, sps)
-            st = _sep_statics(plan, sps)
-            params_stacked = stack_params([chunk[i][2].params for i in sel])
-            spec_in = NamedSharding(self.mesh, P("batch", None, None))
-            planes_d = jax.device_put(jnp.asarray(staged), spec_in)
-            params_d = jax.device_put(
-                params_stacked, NamedSharding(self.mesh, P("batch")))
-
-            def local_sep(planes_l, params_l):
-                return _sep_batch_perimage_jit(planes_l, params_l,
-                                               *tabs_d, **st)
-
-            fn = jax.shard_map(
-                local_sep, mesh=self.mesh,
-                in_specs=(P("batch", None, None), P("batch")),
-                out_specs=P("batch", None, None, None), check_vma=False)
-            return fn(planes_d, params_d)
-        staged = np.stack([
-            stage_scaled_np(chunk[i][2], chunk[i][1].raw.data, spn)
-            for i in sel])
-        st = _statics_for(plan, spn, staged.dtype, interpret)
-        interp = st.pop("interpret")
-        statics_key = tuple(sorted(st.items()))
-        tabs_d = _tables_device(spn)
-        spec_in = NamedSharding(self.mesh, P("batch", None, None))
-        planes_d = jax.device_put(jnp.asarray(staged), spec_in)
-        scal_d = jax.device_put(jnp.asarray(scal), spec_in)
-        spline_d = jax.device_put(jnp.asarray(spline), spec_in)
-
-        def local(planes_l, scal_l, spline_l):
-            if _ds.BATCH_GRID:
-                return _develop_scaled_batchgrid_jit(
-                    planes_l, *tabs_d, scal_l, spline_l, interpret=interp,
-                    **st)
-            return _develop_scaled_batch_jit(
-                planes_l, *tabs_d, scal_l, spline_l,
-                statics_key=statics_key, per_image=True, interpret=interp)
-
-        fn = jax.shard_map(
-            local, mesh=self.mesh,
-            in_specs=(P("batch", None, None),) * 3,
-            out_specs=P("batch", None, None, None), check_vma=False)
-        return fn(planes_d, scal_d, spline_d)
 
     def _collect(self, inflight, results, keep: int = 0):
         """Fetch device outputs to host (oldest first) and scatter into

@@ -2,7 +2,7 @@
 
 Re-design of /root/reference/src/scaling.rs. The reference walks each
 destination pixel's source window in scalar Rust with rayon rows; here the
-same math runs as a vectorized gather loop on the TPU: all destination pixels
+same math runs as a vectorized gather loop on the device: all destination pixels
 advance through their windows in lockstep (one [nh, nw] gather per window
 offset, `lax.fori_loop` over the statically-bounded window size), which keeps
 shapes static for XLA while reproducing the reference's exact weighting
@@ -35,8 +35,7 @@ _f32 = np.float32
 def sat_floor_np(v, maxv, dtype=np.int64):
     """floor -> NaN->0 -> clip[0, maxv]: the host-side f32 two-rounding
     window-index helper (reference scaling.rs from/to semantics). Lives
-    here so every consumer (_transform_aligned_impl, rotate_pallas,
-    develop_scaled) shares ONE definition -- the index math MUST stay in
+    here so every consumer shares ONE definition -- the index math MUST stay in
     host numpy f32 because XLA's FMA contraction changes the rounding
     that feeds this floor (see module notes)."""
     v = np.floor(v)
@@ -197,16 +196,14 @@ def _transform_aligned_impl(src, cfa_tile, *, width, height, topleft, topright,
                             unroll=None):
     """Axis-aligned specialization of the resampler (no rotation: every
     scale-down and crop path). Identical per-pixel semantics to
-    _transform_impl, restructured for the TPU:
+    _transform_impl, restructured around separable axes:
 
       * row windows are contiguous -> per-window-row `jnp.take` row gathers;
       * column selection becomes a matmul against a single one-hot matrix
-        (selection by 0/1 matmul is bit-exact), with window offsets as cheap
-        shifts of the padded row block -- the MXU does the "gather", which
-        element-wise gathers cannot touch on TPU;
-      * everything is channel-planar [C, H, W] internally: trailing channel
-        dims of 3/4/8 would be lane-padded to 128 by the TPU tiled layout
-        (up to 42x memory).
+        (selection by 0/1 matmul at HIGHEST precision is exact), with
+        window offsets as cheap shifts of the padded row block;
+      * everything is channel-planar [C, H, W] internally, like every
+        device buffer of the pipeline.
 
     src: [H, W, C] (planar=False) or [C, H, W] (planar=True); output layout
     matches. The fori(ky) x fori(kx) accumulation order matches the
@@ -304,16 +301,13 @@ def _transform_aligned_impl(src, cfa_tile, *, width, height, topleft, topright,
         P = (xs[None, :] == from_x_d[:, None]).astype(f)
         pad_w = K_x
     if unroll is None:
-        # Hardware-measured default (scripts/exp_r5_unroll.py, one v5e,
-        # 3 interleaved reps each): static unroll wins 1.50-1.53x at
-        # 24MP->0.79x and 1.35-1.43x at ->0.53x by making the banded
-        # slice offsets compile-time constants (XLA CSEs the block
-        # slices and fuses across window steps). Compile cost scales
-        # with K_y*K_x and very long unrolled chains hit the documented
-        # long-chain fusion pathology (BASELINE.md VPU-anchor note), so
-        # only small windows unroll; CPU keeps the fori form (golden-
-        # parity mode, the same backend split as the numerics default).
-        unroll = K_y * K_x <= 32 and jax.default_backend() != "cpu"
+        # Static unroll makes the banded slice offsets compile-time
+        # constants, so XLA fuses across window steps: on the GPU it beats
+        # the fori form on the 24MP -> 0.79x fulldown (PERF.md, unroll
+        # finding). Compile cost scales with K_y*K_x, so only small windows
+        # unroll. Other backends keep the fori form, which the CPU parity
+        # tests pin bit-for-bit.
+        unroll = K_y * K_x <= 32 and jax.default_backend() == "gpu"
 
     nacc = nsum if cfa_mode else C
     sums0 = jnp.zeros((nacc, nheight, nwidth), f)
@@ -341,9 +335,11 @@ def _transform_aligned_impl(src, cfa_tile, *, width, height, topleft, topright,
             factor = jnp.where(factor < 0.0, 0.0, factor)
             w = jnp.where(valid_y[:, None] & valid_x[None, :], factor, 0.0)
 
-            # HIGH = bf16x3 passes: the 3-way bf16 split of an f32 is exact,
-            # and the other operand is 0/1, so selection stays bit-exact at
-            # half the cost of HIGHEST.
+            # HIGHEST = full float32 products. The other operand is 0/1, so
+            # each product is exact and the sum adds exact zeros: selection
+            # is bit-exact. Lower precisions round the selected value (TF32
+            # keeps 10 mantissa bits on the GPU), which breaks the 16-bit
+            # +-1 LSB contract.
             if banded:
                 sels = []
                 for b, bs in enumerate(band_starts):
@@ -351,14 +347,14 @@ def _transform_aligned_impl(src, cfa_tile, *, width, height, topleft, topright,
                         A_pad, (0, bs + kx), (C * nheight, BAND))
                     sels.append(jax.lax.dot_general(
                         A_sh, P_bands[b], (((1,), (1,)), ((), ())),
-                        precision=jax.lax.Precision.HIGH))  # [C*nh, BLK]
+                        precision=jax.lax.Precision.HIGHEST))  # [C*nh, BLK]
                 sel = jnp.concatenate(sels, axis=1)[:, :nwidth]
             else:
                 A_shift = jax.lax.dynamic_slice(
                     A_pad, (0, kx), (C * nheight, width))
                 sel = jax.lax.dot_general(
                     A_shift, P, (((1,), (1,)), ((), ())),
-                    precision=jax.lax.Precision.HIGH)     # [C*nh, nw]
+                    precision=jax.lax.Precision.HIGHEST)  # [C*nh, nw]
             sel = sel.reshape(C, nheight, nwidth)
 
             if not cfa_mode:
@@ -436,40 +432,6 @@ def _transform_aligned_impl(src, cfa_tile, *, width, height, topleft, topright,
     return jnp.moveaxis(out, 0, -1)
 
 
-# Rotated geometry executor: the Pallas MXU one-hot kernel
-# (kernels/rotate_pallas.py) when the geometry supports it, else the gather
-# loop. Tests may force the gather path by setting this to False.
-USE_ROTATE_PALLAS = True
-
-
-def _rotate_pallas_hwc(src, width, height, topleft, topright, bottomleft,
-                       nwidth, nheight, components, out_dtype):
-    """Route a rotated HWC resample through the Pallas kernel; returns None
-    when the geometry is unsupported (caller falls back to the gather loop).
-    Channels are independent in non-CFA mode, so slicing to `components`
-    before the kernel equals the gather loop's accumulate-then-slice."""
-    from .kernels import rotate_pallas
-
-    src3 = jnp.atleast_3d(src)
-    C = min(int(components), src3.shape[-1])
-    if C != int(components):
-        return None
-    plan = rotate_pallas.rotate_plan(
-        int(width), int(height), topleft, topright, bottomleft,
-        int(nwidth), int(nheight), C)
-    if plan is None:
-        return None
-    out = rotate_pallas.rotate_resample_planar(
-        jnp.moveaxis(src3[..., :C], -1, 0), int(width), int(height),
-        topleft, topright, bottomleft, int(nwidth), int(nheight), C,
-        plan=plan)
-    out = jnp.moveaxis(out, 0, -1)
-    if out_dtype == jnp.float32:
-        return out
-    info = jnp.iinfo(out_dtype)
-    return jnp.clip(jnp.trunc(out), info.min, info.max).astype(out_dtype)
-
-
 def _cfa_args(cfa):
     """(cfa_tile, cfa_key) jit args for the _transform_* impls: the device
     pattern tile plus its static cache key (None -> non-CFA mode with a
@@ -489,17 +451,10 @@ def transform_buffer(src, width, height, topleft, topright, bottomleft,
     """
     cfa_tile, cfa_key = _cfa_args(cfa)
     # Axis-aligned geometry (every scale-down / pure-crop path) uses the
-    # MXU selection formulation; rotation uses the Pallas MXU kernel with
-    # the gather loop as fallback.
+    # one-hot selection formulation; rotation uses the gather loop.
     aligned = (int(topright[1]) == int(topleft[1])
                and int(bottomleft[0]) == int(topleft[0])
                and nwidth > 1 and nheight > 1)
-    if not aligned and cfa is None and USE_ROTATE_PALLAS:
-        out = _rotate_pallas_hwc(src, width, height, topleft, topright,
-                                 bottomleft, nwidth, nheight, components,
-                                 out_dtype)
-        if out is not None:
-            return out
     impl = _transform_aligned_impl if aligned else _transform_impl
     return impl(
         src, cfa_tile,
@@ -536,8 +491,8 @@ def _scale_down(src, width, height, nwidth, nheight, components, cfa=None,
 def transform_buffer_planar(src_chw, width, height, topleft, topright,
                             bottomleft, nwidth, nheight, components, cfa=None):
     """Planar ([C,H,W] in/out) resampler entry: aligned geometry uses the
-    planar MXU core directly; rotated geometry round-trips through the
-    HWC gather fallback."""
+    planar selection core directly; rotated geometry round-trips through
+    the HWC gather loop."""
     aligned = (int(topright[1]) == int(topleft[1])
                and int(bottomleft[0]) == int(topleft[0])
                and nwidth > 1 and nheight > 1)
@@ -552,20 +507,6 @@ def transform_buffer_planar(src_chw, width, height, topleft, topright,
             nwidth=int(nwidth), nheight=int(nheight),
             components=int(components), cfa_key=cfa_key,
             out_dtype=jnp.float32, planar=True)
-    if cfa is None and USE_ROTATE_PALLAS and components <= src_chw.shape[0]:
-        from .kernels import rotate_pallas
-
-        C = int(components)
-        plan = rotate_pallas.rotate_plan(
-            int(width), int(height), topleft, topright, bottomleft,
-            int(nwidth), int(nheight), C)
-        if plan is not None:
-            return rotate_pallas.rotate_resample_planar(
-                src_chw[:C], int(width), int(height), topleft, topright,
-                bottomleft, int(nwidth), int(nheight), C, plan=plan)
-    # Unsupported-geometry fallback: go straight to the gather impl (the
-    # rotate plan was already computed and rejected above; routing through
-    # transform_buffer would rebuild the identical plan).
     cfa_tile, cfa_key = _cfa_args(cfa)
     out_hwc = _transform_impl(
         jnp.moveaxis(src_chw, 0, -1), cfa_tile,

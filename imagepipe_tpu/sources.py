@@ -94,9 +94,9 @@ class RasterImage:
 
     def staged_planes(self, bits: int):
         """Device-resident planar [3,H,W] u8/u16 copy, uploaded once.
-        Planar because a device-side [H,W,3] would be lane-padded 3->128 by
-        the TPU tiled layout; and memoized because re-uploading tens of MB
-        per develop dominates interactive re-renders."""
+        Planar like every device buffer of the pipeline (OpBuffer); and
+        memoized because re-uploading tens of MB per develop dominates
+        interactive re-renders."""
         import jax.numpy as jnp
 
         key = f"_device_planes_{bits}"

@@ -96,8 +96,8 @@ class SplineFunc:
         exact knot y at knots, cubic in between.
 
         Gather-free: tone curves have a handful of knots, so interval
-        selection unrolls into where-chains (per-pixel table gathers
-        serialize badly on the TPU's vector units; compare-selects don't).
+        selection unrolls into where-chains of compare-selects that fuse
+        with the surrounding elementwise work.
         """
         val = jnp.asarray(val, dtype=jnp.float32)
         xs, ys = self.xs, self.ys

@@ -1,6 +1,6 @@
 // libimagepipe_host: native host-side decode/pack helpers.
 //
-// The TPU does the pixel math; the host side still has real native work:
+// The device does the pixel math; the host side still has real native work:
 // unpacking camera bitstreams (12/14-bit packed little/big-endian rows into
 // u16 planes) and staging/interleave conversions. The reference delegates
 // this to the rawloader crate's Rust decoders (SURVEY.md L0); here it's a

@@ -11,7 +11,7 @@ import pytest
 from imagepipe_tpu.arw1 import (_code_table, _decode_python, decode_arw1,
                                 encode_arw1)
 from imagepipe_tpu.decode import codec_family, decode_file
-from tests.tiffgen import TiffBuilder
+from tiffgen import TiffBuilder
 
 
 def make_arw1(data, model="DSLR-A100", wb=(1900, 1024, 1024, 1500),
@@ -146,7 +146,7 @@ def test_arw1_full_size_strip_still_reads_uncompressed(tmp_path):
     # An A100-labeled file whose strip is the FULL uncompressed extent
     # must take the plain-strip path (the ARW1 route is gated on the
     # undersized strip), not misparse as a bitstream.
-    from tests.test_vendor import make_arw
+    from test_vendor import make_arw
 
     data = _sensor12(8, 12, seed=44)
     path = str(tmp_path / "u.arw")

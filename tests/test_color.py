@@ -219,7 +219,7 @@ def test_roundtrip_16bit_lab_rgb_gamma():
 
 
 def test_direct_mode_within_1lsb_of_lut():
-    """The 'direct' TPU-fast numerics mode must stay within 1 16-bit LSB of
+    """The 'direct' numerics mode must stay within 1 16-bit LSB of
     the reference-faithful LUT mode across the full gamma+Lab chain."""
     r = np.arange(0, 65535, 89, dtype=np.int64)
     try:

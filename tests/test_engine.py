@@ -4,7 +4,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from imagepipe_tpu import ImageSource, Pipeline
 from imagepipe_tpu.engine import develop_fused, make_develop_plan, develop_batch_fn, planar_to_hwc
@@ -162,84 +161,6 @@ def test_batch_engine_error_policy(tmp_path):
         BatchEngine(max_batch=2).develop_files(paths)  # default: raise
 
 
-def test_batch_engine_pallas_executor_sharded():
-    """BatchEngine's Pallas executor (megakernel chained per local batch
-    entry inside a dp-sharded shard_map, interpret mode on the CPU mesh)
-    must agree with the XLA engine within the cross-path <=1 LSB contract
-    and honor per-image calibration."""
-    from imagepipe_tpu.engine import make_develop_plan as _mdp
-
-    raws = [synthetic_bayer(96, 64, seed=60 + s) for s in range(5)]
-    raws[3].wb_coeffs = (1.0, 1.0, 2.8, float("nan"))
-    sources = [ImageSource.from_raw(r) for r in raws]
-
-    class DirectEngine(BatchEngine):
-        def _plan_for(self, source):
-            pipe = Pipeline.new_from_source(source)
-            return make_develop_plan(pipe, out_bits=8, numerics="direct")
-
-    eng = DirectEngine(make_batch_mesh(), max_batch=8, executor="pallas")
-    assert eng._use_pallas(eng._plan_for(sources[0]))
-    outs = eng.develop_sources(sources)
-    for raw, out in zip(raws, outs):
-        plan = _mdp(Pipeline.new_from_source(ImageSource.from_raw(raw)))
-        want = planar_to_hwc(develop_fused(plan, raw.data))
-        diff = np.abs(out.astype(int) - want.astype(int))
-        assert diff.max() <= 1
-        assert (diff != 0).mean() < 0.02
-    assert not np.array_equal(outs[0], outs[3])
-
-
-def test_pallas_sp_sharded_matches_unsharded():
-    """The width-sharded (sp) megakernel executor -- on-device 128-column
-    halo exchange + per-shard global column offsets -- must match the
-    unsharded megakernel within the cross-path <=1 LSB contract, with the
-    halo-sensitive columns at shard boundaries exact."""
-    from imagepipe_tpu.engine import make_develop_plan as _mdp
-    from imagepipe_tpu.kernels.develop_pallas import (
-        develop_pallas, develop_pallas_sp, sp_width_pad)
-    from imagepipe_tpu.parallel import make_batch_mesh
-
-    for make, name in ((synthetic_bayer, "bayer"), (synthetic_xtrans, "xtrans")):
-        raw = make(864, 128, seed=7)
-        pipe = Pipeline.new_from_source(ImageSource.from_raw(raw))
-        plan = _mdp(pipe, out_bits=8, numerics="direct")
-        mesh = make_batch_mesh(spatial=2)
-        out_sp = np.asarray(develop_pallas_sp(plan, raw.data, mesh))
-        out_1 = np.asarray(develop_pallas(plan, raw.data, interpret=True))
-        diff = np.abs(out_sp.astype(int) - out_1.astype(int))
-        assert diff.max() <= 1, f"{name}: sp develop diverged {diff.max()}"
-        assert (diff != 0).mean() < 0.01, name
-        # Shard-boundary columns read across the exchange: must be exact or
-        # within the same contract.
-        wl = sp_width_pad(plan, 2) // 2
-        if wl < raw.width:
-            strip = diff[:, :, wl - 2: wl + 2]
-            assert strip.max() <= 1, f"{name}: halo columns diverged"
-
-
-def test_pallas_sp_orientation():
-    """Under width sharding, EXIF orientation permutes the assembled global
-    image (shards develop unflipped); must match the unsharded megakernel."""
-    from imagepipe_tpu.engine import make_develop_plan as _mdp
-    from imagepipe_tpu.kernels.develop_pallas import (
-        develop_pallas, develop_pallas_sp)
-    from imagepipe_tpu.parallel import make_batch_mesh
-    from imagepipe_tpu.raw import Orientation
-
-    raw = synthetic_bayer(864, 128, seed=8)
-    raw.orientation = Orientation.Rotate90
-    pipe = Pipeline.new_from_source(ImageSource.from_raw(raw))
-    plan = _mdp(pipe, out_bits=8, numerics="direct")
-    mesh = make_batch_mesh(spatial=2)
-    out_sp = np.asarray(develop_pallas_sp(plan, raw.data, mesh))
-    out_1 = np.asarray(develop_pallas(plan, raw.data, interpret=True))
-    assert out_sp.shape == out_1.shape == (3, raw.width, raw.height)
-    diff = np.abs(out_sp.astype(int) - out_1.astype(int))
-    assert diff.max() <= 1
-    assert (diff != 0).mean() < 0.01
-
-
 def test_batch_engine_inflight_bound():
     """Dispatched-but-unfetched batches never exceed inflight_batches, for
     full buckets and for the leftover-bucket tail (mixed shapes)."""
@@ -260,72 +181,6 @@ def test_batch_engine_inflight_bound():
             live -= 1
     assert live == 0
     assert peak <= eng.inflight_batches + 1, peak  # +1: the just-dispatched
-
-
-def test_batch_engine_pallas_dp_sp_mesh():
-    """The megakernel executor on a dp x sp mesh: each image width-sharded
-    with the on-device halo exchange, batches dp-sharded, per-image
-    calibration preserved; agrees with the XLA fused engine within the
-    cross-path contract."""
-    from imagepipe_tpu.engine import make_develop_plan as _mdp
-
-    raws = [synthetic_bayer(864, 96, seed=80 + s) for s in range(4)]
-    raws[2].wb_coeffs = (1.0, 1.0, 2.5, float("nan"))
-    sources = [ImageSource.from_raw(r) for r in raws]
-
-    class DirectEngine(BatchEngine):
-        def _plan_for(self, source):
-            pipe = Pipeline.new_from_source(source)
-            return make_develop_plan(pipe, out_bits=8, numerics="direct")
-
-    eng = DirectEngine(make_batch_mesh(spatial=2), max_batch=4,
-                       executor="pallas")
-    assert eng._use_pallas(eng._plan_for(sources[0]))
-    outs = eng.develop_sources(sources)
-    for raw, out in zip(raws, outs):
-        plan = _mdp(Pipeline.new_from_source(ImageSource.from_raw(raw)))
-        want = planar_to_hwc(develop_fused(plan, raw.data))
-        diff = np.abs(out.astype(int) - want.astype(int))
-        assert diff.max() <= 1
-        assert (diff != 0).mean() < 0.02
-    assert not np.array_equal(outs[0], outs[2])
-
-    # The grid-batched sp form (BATCH_GRID: one halo-collective pair +
-    # one kernel per shard) must reproduce the loop form bit-exactly.
-    from imagepipe_tpu.kernels import develop_pallas as dpk
-
-    old = dpk.BATCH_GRID
-    try:
-        dpk.BATCH_GRID = True
-        outs_g = eng.develop_sources(sources)
-    finally:
-        dpk.BATCH_GRID = old
-    for a, b in zip(outs, outs_g):
-        np.testing.assert_array_equal(a, b)
-
-
-def test_batch_engine_auto_executor_policy():
-    """'auto' prefers the megakernel for every supported direct-numerics
-    plan (incl. X-Trans since the closed-form generic demosaic); 'xla'
-    forces it off; 'lut' numerics stays on the XLA engine."""
-    from imagepipe_tpu.engine import make_develop_plan as _mdp
-
-    class DirectEngine(BatchEngine):
-        def _plan_for(self, source):
-            pipe = Pipeline.new_from_source(source)
-            return make_develop_plan(pipe, out_bits=8, numerics="direct")
-
-    src_b = ImageSource.from_raw(synthetic_bayer(96, 64, seed=1))
-    src_x = ImageSource.from_raw(synthetic_xtrans(96, 72, seed=2))
-    auto = DirectEngine(make_batch_mesh(), executor="auto")
-    assert auto._use_pallas(auto._plan_for(src_b))
-    assert auto._use_pallas(auto._plan_for(src_x))
-    xla = DirectEngine(make_batch_mesh(), executor="xla")
-    assert not xla._use_pallas(xla._plan_for(src_b))
-    lut = BatchEngine(make_batch_mesh(), executor="auto")  # default 'lut' on CPU
-    plan = lut._plan_for(src_b)
-    if plan.numerics == "lut":
-        assert not lut._use_pallas(plan)
 
 
 def test_batch_engine_decode_compute_overlap(tmp_path):

@@ -16,11 +16,11 @@ def _mixed_dir(tmp_path):
     import sys
 
     sys.path.insert(0, str(tmp_path.parent))
-    from tests.test_mrw import make_mrw
-    from tests.test_pentax import _mn_entries
-    from tests.test_rw2 import _smooth as rw2_smooth
-    from tests.test_rw2 import make_rw2
-    from tests.test_vendor import _sensor, make_orf, make_pef
+    from test_mrw import make_mrw
+    from test_pentax import _mn_entries
+    from test_rw2 import _smooth as rw2_smooth
+    from test_rw2 import make_rw2
+    from test_vendor import _sensor, make_orf, make_pef
     from imagepipe_tpu.olympus import encode_olympus
     from imagepipe_tpu.pentax import PentaxHuff, encode_pentax
     from imagepipe_tpu.vendor import register_orf_pattern
@@ -58,7 +58,7 @@ def _mixed_dir(tmp_path):
     paths.append(str(p))
 
     ndata = _sensor(24, 64, seed=5, bits=12)
-    from tests.test_vendor import make_nef
+    from test_vendor import make_nef
 
     p = tmp_path / "e.nef"
     p.write_bytes(make_nef(ndata))

@@ -138,8 +138,8 @@ def test_maximal_tail_fuses_past_declining_rotatecrop(monkeypatch):
 
 
 def test_fused_dispatch_failure_falls_back_per_stage(monkeypatch):
-    """A compile/dispatch error (e.g. transient remote_compile HTTP 500)
-    must fall back to the proven per-stage path, not abort the render."""
+    """A compile/dispatch error of the fused suffix must fall back to the
+    proven per-stage path, not abort the render."""
     import jax
 
     boom = [0]
@@ -150,7 +150,7 @@ def test_fused_dispatch_failure_falls_back_per_stage(monkeypatch):
 
         def wrapper(*args, **kwargs):
             boom[0] += 1
-            raise RuntimeError("remote_compile: HTTP 500")
+            raise RuntimeError("fused suffix failed to compile")
 
         return wrapper
 

@@ -16,7 +16,7 @@ from imagepipe_tpu.hasselblad import (_ENC_CODES, _Ph1BitsWriter,
                                       encode_hasselblad,
                                       parse_jpeg_header)
 from imagepipe_tpu.vendor import read_tiffep
-from tests.tiffgen import TiffBuilder
+from tiffgen import TiffBuilder
 
 
 def _roundtrip(img, psv):
@@ -174,8 +174,8 @@ def test_container_multishot_refused(tmp_path):
 
 
 def test_uncompressed_3fr_still_tiffep(tmp_path):
-    from tests.test_tiffep import make_tiffep
-    from tests.test_vendor import _sensor
+    from test_tiffep import make_tiffep
+    from test_vendor import _sensor
 
     data = _sensor(8, 16, seed=90)
     path = str(tmp_path / "shot.3fr")

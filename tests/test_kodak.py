@@ -11,8 +11,8 @@ import pytest
 from imagepipe_tpu.decode import codec_family, decode_file
 from imagepipe_tpu.kodak import (_decode_python, decode_kodak65000,
                                  encode_kodak65000)
-from tests.tiffgen import TiffBuilder
-from tests.test_vendor import _sensor
+from tiffgen import TiffBuilder
+from test_vendor import _sensor
 
 
 def make_dcr(data, make="KODAK", model="DCS Pro 14N", ext_comp=65000,

@@ -11,8 +11,8 @@ import pytest
 
 from imagepipe_tpu.decode import decode_file
 from imagepipe_tpu.mrw import read_mrw
-from tests.tiffgen import TiffBuilder, pack_12be
-from tests.test_vendor import _sensor
+from tiffgen import TiffBuilder, pack_12be
+from test_vendor import _sensor
 
 
 def make_mrw(data, depth=12, storage=0x52, cfa_code=0x01,
@@ -22,7 +22,7 @@ def make_mrw(data, depth=12, storage=0x52, cfa_code=0x01,
     """Assemble an MRW: \\0MRM (or the little-endian \\0MRI variant) +
     PRD/WBG/TTW blocks + sensor payload. `wb` is (R, G1, G2, B) gains;
     stored value = gain * 2^(6+denom)."""
-    from tests.tiffgen import pack_12le
+    from tiffgen import pack_12le
 
     h, w = data.shape
     en = endian

@@ -16,7 +16,7 @@ from imagepipe_tpu import native
 from imagepipe_tpu.nikon import (NIKON_TREES, _codes, _decode_python,
                                  decode_34713, encode_34713,
                                  parse_linearization)
-from tests.tiffgen import TiffBuilder
+from tiffgen import TiffBuilder
 
 
 def _rng(seed):

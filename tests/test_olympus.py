@@ -14,7 +14,7 @@ from imagepipe_tpu import native
 from imagepipe_tpu.decode import decode_file
 from imagepipe_tpu.olympus import (_decode_native, _decode_python,
                                    decode_olympus, encode_olympus)
-from tests.test_vendor import _sensor, make_orf
+from test_vendor import _sensor, make_orf
 
 _HAVE_NATIVE = native.have_native() and hasattr(native._lib,
                                                 "olympus_decode")

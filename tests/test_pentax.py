@@ -16,7 +16,7 @@ from imagepipe_tpu.decode import decode_file
 from imagepipe_tpu.pentax import (PentaxHuff, _decode_native,
                                   _decode_python, decode_pentax,
                                   encode_pentax)
-from tests.test_vendor import _sensor, make_pef
+from test_vendor import _sensor, make_pef
 
 _HAVE_NATIVE = native.have_native() and hasattr(native._lib,
                                                 "pentax_decode")

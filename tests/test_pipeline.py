@@ -188,12 +188,10 @@ def test_profiling_helpers():
 
 
 def test_vpu_pass_census_pins_numerics_mode():
-    """The compute-floor census is also the regression guard for the
-    round-5 edit-slope root cause: in 'direct' numerics the traced
-    develop chain must contain ZERO gather-class elements (per-pixel
-    jnp.take serializes ~1000x on the TPU VPU), while 'lut' mode (the
-    CPU golden-parity path) necessarily gathers from the LUTs. If
-    'direct' ever re-grows a gather, accelerator edits regress 10x."""
+    """The elementwise census pins what each numerics mode computes: in
+    'direct' numerics the traced develop chain holds ZERO gather-class
+    elements and a fixed exp/log budget, while 'lut' mode (the CPU
+    golden-parity path) gathers from the LUTs."""
     from imagepipe_tpu import profiling
     from imagepipe_tpu.engine import make_develop_plan
     from imagepipe_tpu.raw import synthetic_bayer

@@ -16,8 +16,8 @@ from imagepipe_tpu import native
 from imagepipe_tpu.decode import decode_file
 from imagepipe_tpu.rw2 import (_decode_native, _decode_python, _derotate,
                                decode_panasonic, encode_panasonic, read_rw2)
-from tests.tiffgen import TiffBuilder
-from tests.test_vendor import _sensor
+from tiffgen import TiffBuilder
+from test_vendor import _sensor
 
 _HAVE_NATIVE = native.have_native() and hasattr(native._lib, "rw2_decode")
 

@@ -10,8 +10,8 @@ import pytest
 
 from imagepipe_tpu.decode import decode_file
 from imagepipe_tpu.vendor import read_tiffep
-from tests.tiffgen import TiffBuilder, pack_12be
-from tests.test_vendor import _sensor
+from tiffgen import TiffBuilder, pack_12be
+from test_vendor import _sensor
 
 
 def make_tiffep(data, make="SEIKO EPSON CORP.", model="R-D1", bits=16,

@@ -579,7 +579,7 @@ def olympus_new_note(ip_tags, subdir_inline=False) -> bytes:
 def make_orf(data, model="E-M1MarkII", wb=None, bits=12,
              with_cfa_tags=False, compression=1, payload=None,
              ip_tags=None, ip_inline=False) -> bytes:
-    from tests.tiffgen import pack_12le
+    from tiffgen import pack_12le
 
     h, w = data.shape
     b = TiffBuilder("<")
